@@ -1,39 +1,38 @@
-"""fluid_simulation_tpu — a TPU-native (JAX/XLA/Pallas) 3-D incompressible
-wind-tunnel fluid framework.
+"""The package's former import name, kept so that existing imports work.
 
-Re-implements every capability of the reference C++/OpenMP solver
-(Ghundi/fluid_simulation) as a pure-functional JAX program: Stam-style stable
-fluids (inlet forcing -> diffuse -> project -> advect -> project) over a padded
-``(D+2, H+2, W+2)`` float32 grid with a voxelized obstacle mask, plus geometry
-ingestion (STL), frame dump I/O in the reference's exact binary contract,
-visualization (slice viewer, iso-surface + streamlines), checkpoint/resume,
-batched design sweeps (``vmap``) and multi-chip spatial sharding
-(``shard_map`` + ICI halo exchange).
-
-Quick start::
-
-    from fluid_simulation_tpu import WindTunnel, SimParams
-    wt = WindTunnel(SimParams(width=128, height=64, depth=64))
-    final_state, stats = wt.simulate(steps=100)
+Importing this package, or any submodule under it, warns once and returns
+the very module objects of ``fluid_simulation``; nothing is imported twice.
+New code imports ``fluid_simulation``.
 """
 
-from fluid_simulation_tpu.config import SimParams, SceneParams
-from fluid_simulation_tpu.models.windtunnel import (
-    WindTunnel,
-    FluidState,
-    init_state,
-    simulation_step,
-    simulate,
-)
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-__version__ = "0.1.0"
+_OLD, _NEW = __name__, "fluid_simulation"
 
-__all__ = [
-    "SimParams",
-    "SceneParams",
-    "WindTunnel",
-    "FluidState",
-    "init_state",
-    "simulation_step",
-    "simulate",
-]
+
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<old>.x.y`` to the already-importable ``fluid_simulation.x.y``."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(_OLD + "."):
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        module = importlib.import_module(_NEW + spec.name[len(_OLD):])
+        spec.loader_state = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # the import system set __spec__ to the alias spec; restore it
+        module.__spec__ = module.__spec__.loader_state
+
+
+warnings.warn(f"'{_OLD}' is deprecated; import '{_NEW}' instead",
+              DeprecationWarning, stacklevel=2)
+sys.meta_path.insert(0, _Alias())
+sys.modules[_OLD] = importlib.import_module(_NEW)

@@ -1,15 +1,16 @@
-"""Operator-split advection: kernel (interpret mode) vs NumPy oracle, XLA
-fallback vs oracle, and model-level 'split' mode sanity."""
+"""Operator-split advection (ops/advect.py::advect_split_jnp) against the
+NumPy oracle, and model-level 'split' mode sanity."""
+
+import itertools
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from fluid_simulation_tpu.config import SimParams
-from fluid_simulation_tpu.kernels.advect_pallas import (
-    advect_split, advect_split_fused, advect_split_jnp,
-    advect_split_reference, lane_lerp)
-from fluid_simulation_tpu.models.windtunnel import WindTunnel
+import numpy_ref
+from fluid_simulation.config import SimParams
+from fluid_simulation.models.windtunnel import WindTunnel
+from fluid_simulation.ops.advect import advect_split_jnp
 
 
 def _fields(W=24, H=12, D=10, seed=0):
@@ -23,44 +24,34 @@ def _fields(W=24, H=12, D=10, seed=0):
             jnp.asarray(vz))
 
 
-def test_lane_lerp_interpret_matches_numpy():
-    rng = np.random.default_rng(1)
-    arr = rng.normal(size=(40, 66)).astype(np.float32)
-    xb = rng.uniform(0.5, 64.5, size=(40, 66)).astype(np.float32)
-    got = np.asarray(lane_lerp(jnp.asarray(arr), jnp.asarray(xb),
-                               interpret=True))
-    i0 = np.floor(xb).astype(np.int64)
-    s = xb - i0
-    want = (np.take_along_axis(arr, i0, 1) * (1 - s)
-            + np.take_along_axis(arr, i0 + 1, 1) * s)
-    np.testing.assert_allclose(got, want, atol=1e-6)
-
-
-def test_lane_lerp_two_window_interpret():
-    rng = np.random.default_rng(2)
-    arr = rng.normal(size=(40, 130)).astype(np.float32)
-    xb = rng.uniform(0.5, 128.5, size=(40, 128)).astype(np.float32)
-    got = np.asarray(lane_lerp(jnp.asarray(arr), jnp.asarray(xb),
-                               interpret=True))
-    i0 = np.floor(xb).astype(np.int64)
-    s = xb - i0
-    want = (np.take_along_axis(arr, i0, 1) * (1 - s)
-            + np.take_along_axis(arr, i0 + 1, 1) * s)
-    np.testing.assert_allclose(got, want, atol=1e-6)
-
-
-def test_advect_split_kernel_matches_reference():
-    prev, vx, vy, vz = _fields()
-    want = advect_split_reference(prev, vx, vy, vz, 0.05)
-    got = np.asarray(advect_split(prev, vx, vy, vz, 0.05, interpret=True))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-
-
 def test_advect_split_jnp_matches_reference():
     prev, vx, vy, vz = _fields(seed=3)
-    want = advect_split_reference(prev, vx, vy, vz, 0.05)
+    want = numpy_ref.advect_split(prev, vx, vy, vz, 0.05)
     got = np.asarray(advect_split_jnp(prev, vx, vy, vz, 0.05))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "dims,stacked,dtype",
+    list(itertools.product(((24, 12, 10), (9, 5, 7), (130, 6, 4)),
+                           (False, True), ("float32", "bfloat16"))))
+def test_advect_split_matches_oracle(dims, stacked, dtype):
+    """Odd and wide axes, one field or a stack of three advected through
+    the same velocity, f32 and bf16 fields (coordinates stay f32)."""
+    W, H, D = dims
+    prev, vx, vy, vz = _fields(W, H, D, seed=sum(dims))
+    dt = jnp.dtype(dtype)
+    fields = [prev, prev * 0.5 + 0.1, prev * -0.25] if stacked else [prev]
+    fields = [f.astype(dt) for f in fields]
+    arg = jnp.stack(fields) if stacked else fields[0]
+    got = np.asarray(advect_split_jnp(arg, vx, vy, vz, 0.05), np.float32)
+    assert got.shape == ((3,) if stacked else ()) + (D, H, W)
+    got = got if stacked else got[None]
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    for g, f in zip(got, fields):
+        want = numpy_ref.advect_split(np.asarray(f, np.float32), vx, vy, vz,
+                                      0.05)
+        np.testing.assert_allclose(g, want, rtol=tol, atol=tol)
 
 
 def test_split_mode_model_tracks_compat():
@@ -76,7 +67,7 @@ def test_split_mode_model_tracks_compat():
     for f in wt_s.state:
         assert np.all(np.isfinite(np.asarray(f)))
     # solid-cell invariant holds in split mode too
-    from fluid_simulation_tpu.scene.primitives import empty_obstacles, add_sphere
+    from fluid_simulation.scene.primitives import empty_obstacles, add_sphere
     obs = add_sphere(empty_obstacles(16, 8, 8), 8, 4, 4, 2.5)
     wt_o = WindTunnel(p.replace(mode="split"), obstacles=obs)
     wt_o.simulate(steps=4)
@@ -91,228 +82,3 @@ def test_split_mode_bfloat16_runs():
     wt = WindTunnel(p)
     _, stats = wt.simulate(steps=3)
     assert np.all(np.isfinite(np.asarray(stats.density_sum)))
-
-
-def test_lane_lerp_nwindow_wide_interpret():
-    """Gather axes past 256 lanes: 3+ overlapping windows plus output
-    chunking over the grid (the 256^3 geometry, VERDICT r1 missing#1)."""
-    rng = np.random.default_rng(4)
-    for C, Co in ((258, 256), (300, 300), (400, 130)):
-        arr = rng.normal(size=(24, C)).astype(np.float32)
-        xb = rng.uniform(0.5, C - 1.5, size=(24, Co)).astype(np.float32)
-        got = np.asarray(lane_lerp(jnp.asarray(arr), jnp.asarray(xb),
-                                   interpret=True))
-        i0 = np.floor(xb).astype(np.int64)
-        s = xb - i0
-        want = (np.take_along_axis(arr, i0, 1) * (1 - s)
-                + np.take_along_axis(arr, i0 + 1, 1) * s)
-        np.testing.assert_allclose(got, want, atol=1e-6, err_msg=f"C={C}")
-
-
-def test_advect_split_kernel_wide_grid_interpret():
-    """Split advection end-to-end on a grid whose every axis needs the
-    n-window path (kernel geometry of 256^3 scaled down via the same code
-    paths would be too slow in interpret mode; 140-wide axes already take
-    the two/three-window branches)."""
-    prev, vx, vy, vz = _fields(W=140, H=10, D=8, seed=5)
-    want = advect_split_reference(prev, vx, vy, vz, 0.05)
-    got = np.asarray(advect_split(prev, vx, vy, vz, 0.05, interpret=True))
-    # three chained lerps over normal(0,1) data: tail |err| ~ 3e-5
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
-def test_advect_split_fused_matches_lane_path_interpret():
-    """Fused-backtrace passes vs the lane_lerp path: same expression tree;
-    interpret-mode FP contraction differs by ~1 ulp (on the chip the two
-    are bitwise equal — tools/exp_advect_fused.py measured max diff 0)."""
-    for dims, seed in (((24, 12, 10), 0), ((140, 10, 8), 5), ((18, 8, 6), 2)):
-        W, H, D = dims
-        prev, vx, vy, vz = _fields(W=W, H=H, D=D, seed=seed)
-        stacked = jnp.stack([prev, prev * 0.5 + 0.1, prev * -0.25])
-        want = np.asarray(advect_split(stacked, vx, vy, vz, 0.05,
-                                       interpret=True))
-        got = np.asarray(advect_split_fused(stacked, vx, vy, vz, 0.05,
-                                            interpret=True))
-        assert got.shape == want.shape == (3, D, H, W)
-        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6,
-                                   err_msg=f"dims={dims}")
-
-
-def test_advect_split_t_matches_lane_path_interpret():
-    """Transposing y/z passes vs the materialised-transpose path: the
-    coordinate arrays are identical XLA expressions (natural layout is a
-    pure permutation) and the kernels share the gather/lerp expression
-    tree. Interpret-mode FP contraction differs by ~1 ulp between the two
-    program contexts (same as the stack-vs-per-field test; on the chip the
-    20-step state SHA A/B is the bitwise check) — single-window and
-    window+chunk (H2/D2 = 130) geometries, single field and 3-stack."""
-    from fluid_simulation_tpu.kernels.advect_pallas import advect_split_t
-    for dims, seed in (((24, 12, 10), 0), ((16, 128, 8), 6),
-                       ((16, 8, 128), 7)):
-        W, H, D = dims
-        prev, vx, vy, vz = _fields(W=W, H=H, D=D, seed=seed)
-        want1 = np.asarray(advect_split(prev, vx, vy, vz, 0.05,
-                                        interpret=True))
-        got1 = np.asarray(advect_split_t(prev, vx, vy, vz, 0.05,
-                                         interpret=True))
-        np.testing.assert_allclose(got1, want1, rtol=1.5e-7, atol=2e-7,
-                                   err_msg=f"dims={dims}")
-        stacked = jnp.stack([prev, prev * 0.5 + 0.1, prev * -0.25])
-        want3 = np.asarray(advect_split(stacked, vx, vy, vz, 0.05,
-                                        interpret=True))
-        got3 = np.asarray(advect_split_t(stacked, vx, vy, vz, 0.05,
-                                         interpret=True))
-        assert got3.shape == want3.shape == (3, D, H, W)
-        np.testing.assert_allclose(got3, want3, rtol=1.5e-7, atol=2e-7,
-                                   err_msg=f"dims={dims}")
-
-
-def test_advect_split_t_supported_gate():
-    """The gate accepts single-window and 128-multiple interiors and
-    rejects gather axes that would need a partial output chunk."""
-    from fluid_simulation_tpu.kernels import advect_pallas as ap
-    assert ap._t_pass_supported(66, 64)       # single window
-    assert ap._t_pass_supported(130, 128)     # 2 windows, 1 chunk
-    assert ap._t_pass_supported(258, 256)     # 3 windows, 2 chunks
-    assert not ap._t_pass_supported(194, 192)  # 192 % 128 != 0
-    assert not ap._t_pass_supported(2000, 64)  # past LANE_LERP_MAX_C
-
-
-def test_advect_split_auto_routes_to_t_then_lane_path(monkeypatch):
-    """advect_split_auto prefers advect_split_t (transposing y/z passes:
-    process-isolated A/B won at every size, identical state SHA —
-    tools/exp_advect_t.py), falls back to advect_split when the t gate
-    rejects the shape, and NEVER picks the fused-backtrace variant
-    (measured regression, NOTES.md "Falsified: fused-backtrace advect
-    passes"). Guards against the default silently flipping."""
-    import fluid_simulation_tpu.kernels.advect_pallas as ap
-
-    calls = []
-    monkeypatch.setattr(
-        ap, "advect_split_t",
-        lambda *a, **k: calls.append("tpass") or ap.advect_split_jnp(*a, **k))
-    monkeypatch.setattr(
-        ap, "advect_split",
-        lambda *a, **k: calls.append("lane") or ap.advect_split_jnp(*a, **k))
-    monkeypatch.setattr(
-        ap, "advect_split_fused",
-        lambda *a, **k: calls.append("fused") or ap.advect_split_jnp(*a, **k))
-    monkeypatch.setattr(ap, "lane_lerp_supported", lambda shape: True)
-    prev, vx, vy, vz = _fields(W=10, H=8, D=6, seed=1)
-
-    monkeypatch.setattr(ap, "advect_split_t_supported", lambda shape: True)
-    ap.advect_split_auto(prev, vx, vy, vz, 0.05)
-    assert calls == ["tpass"]
-
-    calls.clear()
-    monkeypatch.setattr(ap, "advect_split_t_supported", lambda shape: False)
-    ap.advect_split_auto(prev, vx, vy, vz, 0.05)
-    assert calls == ["lane"]
-
-    # prefer_t=False keeps the lane path even when the t gate accepts:
-    # steps on the masked z-streaming projection lose with the t-pass
-    # (17.0 vs 15.6 ms/step at 256x128x128 sphere, exp_project_masked)
-    calls.clear()
-    monkeypatch.setattr(ap, "advect_split_t_supported", lambda shape: True)
-    ap.advect_split_auto(prev, vx, vy, vz, 0.05, prefer_t=False)
-    assert calls == ["lane"]
-
-
-def test_split_step_prefers_lane_advect_on_masked_stream_route(monkeypatch):
-    """simulation_step passes prefer_t=False exactly when the projection
-    takes the MASKED z-streaming route (obstacle scene past VMEM
-    residency) — the measured end-to-end loser for the t-pass — and
-    prefer_t=True for empty scenes and VMEM-resident obstacle scenes."""
-    import jax
-
-    from fluid_simulation_tpu.models.windtunnel import simulation_step
-    from fluid_simulation_tpu.scene.primitives import add_sphere, empty_obstacles
-
-    seen = []
-    import fluid_simulation_tpu.kernels.advect_pallas as ap
-    real_auto = ap.advect_split_auto
-
-    def spy(prev, vx, vy, vz, dt_, use_pallas=True, prefer_t=True):
-        seen.append(prefer_t)
-        return real_auto(prev, vx, vy, vz, dt_, use_pallas=use_pallas,
-                         prefer_t=prefer_t)
-    monkeypatch.setattr(ap, "advect_split_auto", spy)
-
-    def run(p, obstacles=None):
-        wt = WindTunnel(p, obstacles=obstacles)
-        simulation_step.clear_cache()   # same params+shapes must re-trace
-        jax.eval_shape(lambda s, m: simulation_step(s, m, wt.params),
-                       wt.state, wt.masks)
-        got = list(seen)
-        seen.clear()
-        assert len(got) == 2            # velocity stack + density
-        return got
-
-    small = dict(width=16, height=8, depth=8, mode="split")
-    sphere = add_sphere(empty_obstacles(16, 8, 8), 8, 4, 4, 2)
-    assert run(SimParams(**small)) == [True, True]          # empty: t-pass
-    # stub the projection so the patched gate below only drives the
-    # prefer_t helper, not an actual kernel trace at this tiny shape
-    import fluid_simulation_tpu.models.windtunnel as wtm
-    monkeypatch.setattr(wtm, "_project_dispatch",
-                        lambda vx, vy, vz, masks, p: (vx, vy, vz))
-    from fluid_simulation_tpu.kernels import project_pallas as pp
-    # VMEM-resident masked projection route: keep the t-pass
-    monkeypatch.setattr(pp, "pallas_project_masked_supported",
-                        lambda shape, dtype: True)
-    assert run(SimParams(**small), sphere) == [True, True]
-    # >VMEM classification: the masked STREAM route engages -> lane path
-    monkeypatch.setattr(pp, "pallas_project_masked_supported",
-                        lambda shape, dtype: False)
-    assert run(SimParams(**small), sphere) == [False, False]
-
-    # mix crossover (round 5): the t-pass is preferred whenever the masked
-    # solves take a merged-window (mdma) or temporal-BlockSpec route — the
-    # depth-1 BlockSpec stream mix is the only measured loser
-    # (tools/exp_advect_mix.py). Unit-check the helper with the backend
-    # patched to "tpu" so the kernel gates engage, avoiding a 256^3 state
-    # allocation on the test mesh.
-    import jax.numpy as jnp
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    big = SimParams(width=256, height=256, depth=256, mode="split",
-                    empty_scene=False)
-    # 256^3 masked -> temporal BlockSpec depth-2 mix -> t-pass
-    assert wtm._advect_prefer_t(big, (258, 258, 258), jnp.float32) is True
-    wide = SimParams(width=512, height=256, depth=256, mode="split",
-                     empty_scene=False)
-    # wide rows masked -> merged-window mdma mix -> t-pass
-    assert wtm._advect_prefer_t(wide, (258, 258, 514), jnp.float32) is True
-    mid = SimParams(width=128, height=128, depth=256, mode="split",
-                    empty_scene=False)
-    # 256x128x128 masked -> mdma now admitted (< TEMPORAL_MIN_CELLS) ->
-    # t-pass (13.22 vs 13.88 ms/step, exp_advect_mix)
-    assert wtm._advect_prefer_t(mid, (258, 130, 130), jnp.float32) is True
-    # vmapped sweeps fall through to the depth-1 BlockSpec masked-stream
-    # kernels (mdma/temporal both decline batched) -> lane path
-    assert wtm._advect_prefer_t(
-        mid.replace(batched=True), (258, 130, 130), jnp.float32) is False
-
-
-def test_lane_lerp_stack_matches_per_field():
-    """The stacked shared-index kernel vs per-field lane_lerp on both
-    window paths. Same expression tree; XLA's FMA-contraction choice for
-    the final lerp can differ by 1 ulp between the two program contexts
-    (on-chip the 20-step state SHA matched exactly — tools/exp_bigsha.py),
-    so compare to 1-ulp relative tolerance. The gather INDICES are integer
-    and must agree exactly — checked via a frac=0 lane probe."""
-    from fluid_simulation_tpu.kernels.advect_pallas import lane_lerp_stack
-    rng = np.random.default_rng(7)
-    for C, Co in ((66, 66), (130, 128), (258, 256)):
-        arr = rng.normal(size=(3, 40, C)).astype(np.float32)
-        xb = rng.uniform(0.5, C - 1.5, size=(40, Co)).astype(np.float32)
-        # integer xb -> s == 0 -> the lerp is a pure gather: must be exact
-        xb[::3] = np.floor(xb[::3])
-        got = np.asarray(lane_lerp_stack(jnp.asarray(arr), jnp.asarray(xb),
-                                         interpret=True))
-        for b in range(3):
-            want = np.asarray(lane_lerp(jnp.asarray(arr[b]),
-                                        jnp.asarray(xb), interpret=True))
-            np.testing.assert_array_equal(got[b, ::3], want[::3],
-                                          err_msg=f"C={C} b={b} (gather)")
-            np.testing.assert_allclose(got[b], want, rtol=1.2e-7, atol=1e-7,
-                                       err_msg=f"C={C} b={b}")

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from fluid_simulation_tpu.ops.bounds import set_bounds
-from fluid_simulation_tpu.scene.masks import build_masks
-from fluid_simulation_tpu.scene.primitives import empty_obstacles, add_box
+from fluid_simulation.ops.bounds import set_bounds
+from fluid_simulation.scene.masks import build_masks
+from fluid_simulation.scene.primitives import empty_obstacles, add_box
 
 W, H, D = 8, 6, 5
 

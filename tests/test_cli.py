@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from fluid_simulation_tpu import cli
+from fluid_simulation import cli
 
 
 def test_cli_run_dump_resume_export(tmp_path):
@@ -61,7 +61,7 @@ def test_cli_view3d_headless(tmp_path, monkeypatch):
     import matplotlib.pyplot as plt
     monkeypatch.setattr(plt, "show", lambda *a, **k: None)
     # force the Qt-less path regardless of what the environment has
-    import fluid_simulation_tpu.viz.viewer3d as v3
+    import fluid_simulation.viz.viewer3d as v3
 
     def no_qt(*a, **k):
         raise ImportError("no Qt in tests")
@@ -74,14 +74,14 @@ def test_cli_view3d_headless(tmp_path, monkeypatch):
 
 def test_step_logger_and_timer(capsys):
     import logging
-    from fluid_simulation_tpu.config import SimParams
-    from fluid_simulation_tpu.models.windtunnel import WindTunnel
-    from fluid_simulation_tpu.utils.logging import StepLogger
-    from fluid_simulation_tpu.utils.profiling import Timer
+    from fluid_simulation.config import SimParams
+    from fluid_simulation.models.windtunnel import WindTunnel
+    from fluid_simulation.utils.logging import StepLogger
+    from fluid_simulation.utils.profiling import Timer
 
     # the module logger caches its handler on first use (possibly bound to a
     # previous test's captured stdout) — rebind to this test's capture
-    lg = logging.getLogger("fluid_simulation_tpu")
+    lg = logging.getLogger("fluid_simulation")
     for h in list(lg.handlers):
         lg.removeHandler(h)
 
@@ -112,7 +112,7 @@ def test_cli_render_live(tmp_path):
 
 
 def test_trace_ctx(tmp_path):
-    from fluid_simulation_tpu.utils.profiling import trace_ctx
+    from fluid_simulation.utils.profiling import trace_ctx
     import jax.numpy as jnp
     d = str(tmp_path / "trace")
     with trace_ctx(d):

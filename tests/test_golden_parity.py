@@ -17,9 +17,9 @@ import os
 import numpy as np
 import pytest
 
-from fluid_simulation_tpu.config import SimParams
-from fluid_simulation_tpu.models.windtunnel import WindTunnel
-from fluid_simulation_tpu.scene.primitives import empty_obstacles, add_box
+from fluid_simulation.config import SimParams
+from fluid_simulation.models.windtunnel import WindTunnel
+from fluid_simulation.scene.primitives import empty_obstacles, add_box
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -152,9 +152,9 @@ def test_golden_stl_flow_end_to_end():
     the golden mask: the reference jitters points/rays randomly, so mask
     parity is statistical), and the FLOW is compared on the golden's exact
     mask (statistical through chaos, tight early)."""
-    from fluid_simulation_tpu.config import SceneParams
-    from fluid_simulation_tpu.scene.primitives import empty_obstacles
-    from fluid_simulation_tpu.scene.voxelize import load_stl_into_obstacles
+    from fluid_simulation.config import SceneParams
+    from fluid_simulation.scene.primitives import empty_obstacles
+    from fluid_simulation.scene.voxelize import load_stl_into_obstacles
 
     g = _golden("stl_flow_64x32x32")
     stl = os.path.join(GOLDEN_DIR, "icosphere_r10.stl")

@@ -5,12 +5,12 @@ import os
 
 import numpy as np
 
-from fluid_simulation_tpu.config import SimParams
-from fluid_simulation_tpu.io.checkpoint import (
+from fluid_simulation.config import SimParams
+from fluid_simulation.io.checkpoint import (
     load_checkpoint, latest_checkpoint, save_checkpoint)
-from fluid_simulation_tpu.io.dump import (
+from fluid_simulation.io.dump import (
     FIELD_FILES, FrameWriter, read_last_frame, read_run, run_and_dump)
-from fluid_simulation_tpu.models.windtunnel import WindTunnel
+from fluid_simulation.models.windtunnel import WindTunnel
 
 P = SimParams(width=12, height=6, depth=5, solver="jacobi", acc=4)
 
@@ -186,8 +186,8 @@ def test_nan_watchdog(tmp_path):
     # the failure detector the reference lacks (SURVEY.md §5): divergence
     # triggers an emergency checkpoint and a loud error
     import pytest
-    from fluid_simulation_tpu.io.dump import SimulationDiverged
-    from fluid_simulation_tpu.io.checkpoint import load_checkpoint
+    from fluid_simulation.io.dump import SimulationDiverged
+    from fluid_simulation.io.checkpoint import load_checkpoint
 
     d = str(tmp_path / "data")
     # a dt so large the advection/projection blow up immediately is hard to

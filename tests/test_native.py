@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 
 try:
-    from fluid_simulation_tpu.native import load_library
+    from fluid_simulation.native import load_library
     load_library()
     HAVE_NATIVE = True
 except OSError:
@@ -42,10 +42,10 @@ def _cube_stl(tmp_path, lo=-2.0, hi=2.0):
 
 
 def _voxelize_both(tmp_path, stl_path, rot_angles=(15, 25, 35)):
-    from fluid_simulation_tpu.native import geometry as ngeo
-    from fluid_simulation_tpu.scene.stl import (
+    from fluid_simulation.native import geometry as ngeo
+    from fluid_simulation.scene.stl import (
         read_stl, rotate_triangles, bounding_sphere_box)
-    from fluid_simulation_tpu.scene.voxelize import voxelize_ray_parity
+    from fluid_simulation.scene.voxelize import voxelize_ray_parity
     tris = read_stl(stl_path)
     rot, center = rotate_triangles(tris, *rot_angles)
     lo, hi, _ = bounding_sphere_box(tris, center)
@@ -78,7 +78,7 @@ def test_native_voxelizer_cube_edge_seams(tmp_path):
 
 
 def test_native_framewriter_roundtrip(tmp_path):
-    from fluid_simulation_tpu.native.framewriter import NativeFrameWriter
+    from fluid_simulation.native.framewriter import NativeFrameWriter
     paths = [str(tmp_path / f"f{i}.bin") for i in range(3)]
     rng = np.random.default_rng(0)
     frames = [[rng.normal(size=(4, 5)).astype(np.float32) for _ in range(3)]
@@ -99,8 +99,8 @@ def test_native_framewriter_roundtrip(tmp_path):
 
 
 def test_io_dump_native_backend(tmp_path):
-    from fluid_simulation_tpu.config import SimParams
-    from fluid_simulation_tpu.io.dump import FrameWriter, read_run, FIELD_FILES
+    from fluid_simulation.config import SimParams
+    from fluid_simulation.io.dump import FrameWriter, read_run, FIELD_FILES
     p = SimParams(width=8, height=4, depth=4)
     d = str(tmp_path / "data")
     rng = np.random.default_rng(1)

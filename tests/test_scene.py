@@ -7,13 +7,13 @@ import struct
 import numpy as np
 import pytest
 
-from fluid_simulation_tpu.config import SceneParams
-from fluid_simulation_tpu.scene.stl import (
+from fluid_simulation.config import SceneParams
+from fluid_simulation.scene.stl import (
     read_stl, rotation_matrix, rotate_triangles)
-from fluid_simulation_tpu.scene.voxelize import (
+from fluid_simulation.scene.voxelize import (
     grid_mapping, load_stl_into_obstacles, voxelize_rasterize,
     voxelize_ray_parity)
-from fluid_simulation_tpu.scene.primitives import empty_obstacles, add_sphere
+from fluid_simulation.scene.primitives import empty_obstacles, add_sphere
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -113,7 +113,7 @@ def test_voxelizers_agree_on_sphere(tmp_path):
     obs_r = load_stl_into_obstacles(scene, empty_obstacles(W, H, D))
     # analytic: gridScale = 0.8*32/objSize maps the ball to radius ~12.2 ...
     # compare against add_sphere with the same mapping instead of hardcoding
-    from fluid_simulation_tpu.scene.stl import bounding_sphere_box
+    from fluid_simulation.scene.stl import bounding_sphere_box
     tris = read_stl(stl)
     lo, hi, r = bounding_sphere_box(tris, np.zeros(3, np.float32))
     to_grid, gscale = grid_mapping(lo, hi, np.zeros(3, np.float32), 0.8,

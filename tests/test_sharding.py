@@ -11,11 +11,11 @@ import numpy as np
 import pytest
 import jax
 
-from fluid_simulation_tpu.config import SimParams
-from fluid_simulation_tpu.models.windtunnel import WindTunnel
-from fluid_simulation_tpu.parallel.sharded import (
+from fluid_simulation.config import SimParams
+from fluid_simulation.models.windtunnel import WindTunnel
+from fluid_simulation.parallel.sharded import (
     ShardedWindTunnel, split_padded, stitch_padded)
-from fluid_simulation_tpu.scene.primitives import empty_obstacles, add_sphere
+from fluid_simulation.scene.primitives import empty_obstacles, add_sphere
 
 PARAMS = SimParams(width=16, height=8, depth=8, acc=6)
 
@@ -49,30 +49,6 @@ def test_sharded_matches_single_bitwise(n_dev, solver):
                                    err_msg=name)
     np.testing.assert_allclose(np.asarray(stats.density_sum),
                                np.asarray(ref_stats.density_sum), rtol=1e-5)
-
-
-def test_backend_report():
-    """The solve-backend drop is surfaced, not silent (VERDICT r2 weak #5):
-    odd local slab depths and 2-D meshes report why the Pallas sweep kernel
-    is out; supported geometries report it in (module-gated on CPU)."""
-    r = ShardedWindTunnel(PARAMS, n_devices=4).backend_report()
-    assert r["mesh"] == (4, 1) and r["local_padded_shape"] == (4, 10, 18)
-    # depth=8 over nz=4 -> even slabs; on CPU the backend gate is the only
-    # blocker, on TPU this geometry would use the kernel
-    assert r["solve"] in ("pallas_packed_sweep", "jnp_rbgs")
-
-    r = ShardedWindTunnel(PARAMS.replace(depth=12),
-                          n_devices=4).backend_report()
-    assert r["solve"] == "jnp_rbgs" and "odd local slab depth 3" in (
-        r["solve_reason"])
-
-    r = ShardedWindTunnel(PARAMS, n_devices=4,
-                          mesh_shape=(2, 2)).backend_report()
-    assert r["solve"] == "jnp_rbgs" and "2-D mesh" in r["solve_reason"]
-
-    r = ShardedWindTunnel(PARAMS.replace(use_pallas=False),
-                          n_devices=4).backend_report()
-    assert r["solve_reason"] == "use_pallas=False"
 
 
 def test_sharded_empty_tunnel_runs():
@@ -119,7 +95,7 @@ def test_sharded_noslip_matches_single_chip():
 
 
 def test_make_mesh():
-    from fluid_simulation_tpu.parallel.mesh import make_mesh
+    from fluid_simulation.parallel.mesh import make_mesh
     m = make_mesh(n_devices=8, batch=2)
     assert m.axis_names == ("batch", "z") and m.devices.shape == (2, 4)
     with pytest.raises(ValueError):
@@ -173,51 +149,9 @@ def test_bounded_halo_advect_matches_all_gather(halo_slabs):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("n_dev", [1, 2, 4])
-def test_sharded_pallas_solve_matches_jnp(n_dev):
-    """VERDICT r1 next#4: the per-sweep fused Pallas kernel inside the
-    sharded solve (kernels/linsolve_sweep.py, exercised on CPU via the
-    interpreter) matches both the jnp sharded path and the single-chip
-    solver."""
-    if jax.device_count() < n_dev:
-        pytest.skip("not enough virtual devices")
-    from fluid_simulation_tpu.kernels import linsolve_sweep
-
-    obs = add_sphere(empty_obstacles(16, 8, 8), cx=8, cy=4, cz=4, radius=2.5)
-    ref = WindTunnel(PARAMS, obstacles=obs)
-    ref.simulate(steps=3)
-
-    sw_jnp = ShardedWindTunnel(PARAMS.replace(use_pallas=False),
-                               obstacles=obs, n_devices=n_dev)
-    sw_jnp.simulate(steps=3)
-    got_jnp = sw_jnp.global_state()
-
-    linsolve_sweep.FORCE_INTERPRET = True
-    try:
-        assert linsolve_sweep.pallas_sweep_supported(
-            (8 // n_dev + 2, 10, 18)) == (8 // n_dev >= 2)
-        sw_pl = ShardedWindTunnel(PARAMS, obstacles=obs, n_devices=n_dev)
-        sw_pl.simulate(steps=3)
-        got_pl = sw_pl.global_state()
-    finally:
-        linsolve_sweep.FORCE_INTERPRET = False
-
-    for name, a, b, c in zip(("vx", "vy", "vz", "dens"), ref.state,
-                             got_jnp, got_pl):
-        a, b, c = np.asarray(a), np.asarray(b), np.asarray(c)
-        scale = np.abs(a).max() + 1e-12
-        # pallas vs jnp sharded: same expressions, same exchange schedule
-        np.testing.assert_allclose(c, b, rtol=0, atol=2e-6 * scale,
-                                   err_msg=f"{name} pallas-vs-jnp")
-        # and both track the single-chip run
-        np.testing.assert_allclose(c, a, rtol=0, atol=5e-5 * scale,
-                                   err_msg=f"{name} pallas-vs-single")
-
-
 def test_sharded_bfloat16_matches_single_chip():
-    """bf16 sharded step (jnp path on CPU; the Pallas sweep kernel gate also
-    accepts bf16) tracks the single-chip bf16 run *statistically*: with an
-    8-bit mantissa, program-structure rounding differences can flip a
+    """bf16 sharded step tracks the single-chip bf16 run *statistically*:
+    with an 8-bit mantissa, program-structure rounding differences can flip a
     backtrace gather index, so pointwise comparison is meaningless — mass
     and moments must still agree."""
     if jax.device_count() < 4:
@@ -293,7 +227,7 @@ def test_sharded_2d_streaming_and_render(tmp_path):
     """Recorded frames + device slice render on the 2-D mesh."""
     if jax.device_count() < 4:
         pytest.skip("not enough virtual devices")
-    from fluid_simulation_tpu.io.dump import read_run, run_and_dump
+    from fluid_simulation.io.dump import read_run, run_and_dump
     import os
     obs = add_sphere(empty_obstacles(16, 8, 8), cx=8, cy=4, cz=4, radius=2.5)
     sw = ShardedWindTunnel(PARAMS, obstacles=obs, mesh_shape=(2, 2))
@@ -309,7 +243,7 @@ def test_sharded_2d_streaming_and_render(tmp_path):
         scale = np.abs(want[k]).max() + 1e-12
         np.testing.assert_allclose(got[k], want[k], rtol=0,
                                    atol=5e-5 * scale, err_msg=k)
-    from fluid_simulation_tpu.viz.slices import render_slice
+    from fluid_simulation.viz.slices import render_slice
     st = sw.global_state()
     img = sw.render_slice(4, kind="dens")
     want_img = render_slice(np.asarray(st.dens),
@@ -322,7 +256,7 @@ def test_sharded_streaming_dump_and_render(tmp_path):
     """BASELINE config 5's output clause (VERDICT r2 missing#1): a sharded
     run streams contract-valid .bin frames + on-device-rendered slices."""
     import os
-    from fluid_simulation_tpu.io.dump import read_run, run_and_dump
+    from fluid_simulation.io.dump import read_run, run_and_dump
 
     obs = add_sphere(empty_obstacles(16, 8, 8), cx=8, cy=4, cz=4, radius=2.5)
     sw = ShardedWindTunnel(PARAMS, obstacles=obs, n_devices=4)
@@ -344,7 +278,7 @@ def test_sharded_streaming_dump_and_render(tmp_path):
                                    atol=5e-5 * scale, err_msg=k)
 
     # per-rank on-device slice render == host render of the stitched state
-    from fluid_simulation_tpu.viz.slices import render_slice
+    from fluid_simulation.viz.slices import render_slice
     st = sw.global_state()
     for z in (0, 3, 5, 9):
         img = sw.render_slice(z, kind="dens")
@@ -354,3 +288,22 @@ def test_sharded_streaming_dump_and_render(tmp_path):
         # colormap quantization makes large pixel steps at bin edges; the
         # ulp-level field differences may flip a bin, so compare loosely
         assert np.mean(np.abs(img.astype(int) - want_img.astype(int))) < 2.0
+
+
+@pytest.mark.parametrize("mode", ["split", "compat"])
+def test_sharded_phases_bitwise_until_advection(mode):
+    """From a common state, the sharded step equals the one-device step
+    bitwise through the diffusions and the first projection; the first
+    differences (FMA contraction in the advection lerps) stay at ulp level
+    through the rest of the step (tools/sharded_phase_diff.py)."""
+    if jax.device_count() < 4:
+        pytest.skip("not enough virtual devices")
+    from tools.sharded_phase_diff import PHASES, phase_diffs
+    recs = phase_diffs(16, 8, 8, mode=mode, steps=3, devices=4)
+    assert [r["phase"] for r in recs] == list(PHASES)
+    first_adv = PHASES.index("advect velocity")
+    for r in recs:
+        fields = [r[f] for f in ("vx", "vy", "vz", "dens")]
+        if recs.index(r) < first_adv:
+            assert all(f["n_diff"] == 0 for f in fields), r
+        assert all(f["rel_max_diff"] <= 5e-6 for f in fields), r

@@ -1,13 +1,16 @@
 """Full-step behavior: shapes, finiteness, inlet mass budget, solid cells,
 projection effectiveness, fast-vs-compat agreement."""
 
+import itertools
+
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from fluid_simulation_tpu.config import SimParams
-from fluid_simulation_tpu.models.windtunnel import WindTunnel
-from fluid_simulation_tpu.ops.project import divergence, grid_h
-from fluid_simulation_tpu.scene.primitives import empty_obstacles, add_sphere
+from fluid_simulation.config import SimParams
+from fluid_simulation.models.windtunnel import WindTunnel
+from fluid_simulation.ops.project import divergence, grid_h
+from fluid_simulation.scene.primitives import empty_obstacles, add_sphere
 
 PARAMS = SimParams(width=16, height=8, depth=8, solver="rbgs")
 
@@ -43,7 +46,7 @@ def test_solid_cells_stay_zero():
 
 
 def test_projection_reduces_divergence():
-    from fluid_simulation_tpu.ops.project import project
+    from fluid_simulation.ops.project import project
     wt = WindTunnel(PARAMS)  # masks only; use a fresh random velocity field
     # The reference's collocated discretization (central-difference gradient
     # vs 7-point Poisson stencil) cannot damp checkerboard modes, so use a
@@ -120,49 +123,129 @@ def test_empty_scene_with_solids_rejected():
     assert wt.params.empty_scene
 
 
-def test_pad_bounds_tail_fallback_matches_set_bounds():
-    """The concat-built fallback of _pad_bounds_tail (used when the fused
-    kernel's VMEM gate fails, e.g. 256^3) equals zeros.at[].set + set_bounds
-    bitwise, for velocity stacks and scalars, empty and obstacle scenes."""
-    import numpy as np
-    from fluid_simulation_tpu.models.windtunnel import _pad_bounds_tail
-    from fluid_simulation_tpu.ops.bounds import set_bounds
-    from fluid_simulation_tpu.scene.masks import build_masks
-    from fluid_simulation_tpu.scene.primitives import add_sphere, empty_obstacles
+@pytest.mark.parametrize(
+    "bs,wall,masked,dtype",
+    list(itertools.product(((1, 2, 3), (0,)), ("reference", "noslip"),
+                           (False, True), ("float32", "bfloat16"))))
+def test_pad_bounds_tail_fallback_matches_set_bounds(bs, wall, masked,
+                                                     dtype):
+    """_pad_bounds_tail builds each padded field as nested concats; it
+    equals zeros.at[].set + set_bounds bitwise, for velocity stacks and
+    scalars, both wall modes, empty and obstacle scenes."""
+    from fluid_simulation.models.windtunnel import _pad_bounds_tail
+    from fluid_simulation.ops.bounds import set_bounds
+    from fluid_simulation.scene.masks import build_masks
 
     W, H, D = 16, 8, 8
-    obs = add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2.0)
-    masks = build_masks(jnp.asarray(obs))
+    dt = jnp.dtype(dtype)
+    obs = (add_sphere(empty_obstacles(W, H, D), 5, 4, 4, 2.0) if masked
+           else empty_obstacles(W, H, D))
+    masks = build_masks(jnp.asarray(obs), dtype=dt)
     rng = np.random.default_rng(5)
-    for bs, empty, wall in (((1, 2, 3), False, "reference"),
-                            ((1, 2, 3), True, "noslip"),
-                            ((0,), False, "reference"),
-                            ((0,), True, "reference")):
-        p = PARAMS.replace(empty_scene=empty, wall_mode=wall)
-        smp = jnp.asarray(
-            rng.normal(size=(len(bs), D, H, W)).astype(np.float32))
-        got = _pad_bounds_tail(smp, bs, masks, p)
-        for i, b in enumerate(bs):
-            s = smp[i] if empty else smp[i] * masks.fluid_i
-            f = jnp.zeros((D + 2, H + 2, W + 2), jnp.float32)
-            f = f.at[1:-1, 1:-1, 1:-1].set(s)
-            ref = set_bounds(b, f, masks, wall, empty_scene=empty)
-            np.testing.assert_array_equal(np.asarray(got[i]), np.asarray(ref),
-                                          err_msg=f"bs={bs} b={b}")
+    p = PARAMS.replace(empty_scene=not masked, wall_mode=wall)
+    smp = jnp.asarray(rng.normal(size=(len(bs), D, H, W)), dt)
+    got = _pad_bounds_tail(smp, bs, masks, p)
+    for i, b in enumerate(bs):
+        s = smp[i] if not masked else smp[i] * masks.fluid_i
+        f = jnp.zeros((D + 2, H + 2, W + 2), dt)
+        f = f.at[1:-1, 1:-1, 1:-1].set(s)
+        ref = set_bounds(b, f, masks, wall, empty_scene=not masked)
+        np.testing.assert_array_equal(np.asarray(got[i], np.float32),
+                                      np.asarray(ref, np.float32),
+                                      err_msg=f"bs={bs} b={b}")
 
 
 def test_prestep_kernel_stays_retired():
-    """The fused prestep kernel must stay OUT of the package and the
-    production dispatch: combined with the lane-lerp split advection in one
-    scanned program it faults Mosaic (UNAVAILABLE at the first scan), and it
-    measures slower than the masked-fused-projection chain anyway (1.185 vs
-    1.038 ms/step on the v5e sphere scene — NOTES.md "Retired: fused prestep
-    kernel", tools/exp_obstacle_bisect.py). Round 5 moved it to
-    tools/prestep_pallas.py (VERDICT r4 #7); guard against it creeping back."""
-    import importlib.util
-
-    assert importlib.util.find_spec(
-        "fluid_simulation_tpu.kernels.prestep_pallas") is None
-    import fluid_simulation_tpu.models.windtunnel as wtm
+    """The step stays one chain of the ops/ operators: the only hand-written
+    kernel in the package is the fused red-black sweep, reached through
+    ops.linsolve.linear_solver, and no fused "prestep" (diffusion +
+    projection in one kernel) creeps back into simulation_step."""
     import inspect
-    assert "pallas_prestep" not in inspect.getsource(wtm.simulation_step)
+    import pkgutil
+
+    import fluid_simulation.kernels as kernels
+    import fluid_simulation.models.windtunnel as wtm
+
+    assert [m.name for m in pkgutil.iter_modules(kernels.__path__)] == [
+        "rbgs_sweep"]
+    src = inspect.getsource(wtm.simulation_step)
+    assert "prestep" not in src and "kernels" not in src
+
+
+def _sphere_or_empty(scene):
+    if scene == "sphere":
+        return add_sphere(empty_obstacles(16, 8, 8), 8, 4, 4, 2.5)
+    return None
+
+
+@pytest.mark.parametrize(
+    "mode,wall_mode,scene",
+    list(itertools.product(("compat", "fast", "split"),
+                           ("reference", "noslip"), ("empty", "sphere"))))
+def test_step_invariants(mode, wall_mode, scene):
+    """Every mode x wall mode x scene: fields keep shape and dtype and stay
+    finite, the tunnel fills monotonically, solid cells stay exactly zero,
+    and ghost edges stay zero (the reference never writes them)."""
+    obs = _sphere_or_empty(scene)
+    wt = WindTunnel(PARAMS.replace(mode=mode, wall_mode=wall_mode),
+                    obstacles=obs)
+    _, stats = wt.simulate(steps=4)
+    s = np.asarray(stats.density_sum)
+    assert s.shape == (4,) and np.all(np.isfinite(s))
+    assert np.all(np.diff(s) > 0)
+    assert np.all(np.isfinite(np.asarray(stats.max_divergence)))
+    for f in wt.state:
+        a = np.asarray(f)
+        assert a.shape == PARAMS.padded_shape and a.dtype == np.float32
+        assert np.all(np.isfinite(a))
+        for edge in (a[0, 0, :], a[0, -1, :], a[-1, 0, :], a[-1, -1, :],
+                     a[:, 0, 0], a[:, -1, -1], a[0, :, 0], a[-1, :, -1]):
+            assert np.all(edge == 0.0)
+        if obs is not None:
+            assert np.all(a[np.asarray(obs) >= 0.5] == 0.0)
+
+
+@pytest.mark.parametrize("scene,wall_mode", [
+    ("empty", "reference"), ("empty", "noslip"), ("sphere", "reference"),
+    ("sphere", "noslip")])
+def test_projection_matches_numpy(scene, wall_mode):
+    """ops.project against the NumPy oracle of Simulation::project
+    (tests/numpy_ref.py): obstacle-aware divergence, red-black Poisson
+    solve, central/one-sided gradient, setBounds."""
+    import numpy_ref
+    from fluid_simulation.ops.project import project
+    from fluid_simulation.scene.masks import build_masks
+
+    obs = _sphere_or_empty(scene)
+    if obs is None:
+        obs = empty_obstacles(16, 8, 8)
+    masks = build_masks(jnp.asarray(obs))
+    rng = np.random.default_rng(3)
+    vs = [rng.normal(size=PARAMS.padded_shape).astype(np.float32)
+          for _ in range(3)]
+    got = project(*(jnp.asarray(v) for v in vs), masks, acc=6,
+                  wall_mode=wall_mode, empty_scene=scene == "empty")
+    want = numpy_ref.project(*vs, obs, wall_mode=wall_mode, acc=6)
+    for g, w in zip(got[:3], want):
+        np.testing.assert_allclose(np.asarray(g), w, rtol=0,
+                                   atol=2e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("scene", ["empty", "sphere"])
+def test_confinement_matches_numpy(scene):
+    """ops.vorticity.apply_confinement against the NumPy oracle."""
+    import numpy_ref
+    from fluid_simulation.ops.vorticity import apply_confinement
+    from fluid_simulation.scene.masks import build_masks
+
+    obs = _sphere_or_empty(scene)
+    if obs is None:
+        obs = empty_obstacles(16, 8, 8)
+    masks = build_masks(jnp.asarray(obs))
+    rng = np.random.default_rng(4)
+    vs = [rng.normal(size=PARAMS.padded_shape).astype(np.float32)
+          for _ in range(3)]
+    got = apply_confinement(*(jnp.asarray(v) for v in vs), masks, 2.0, 0.05)
+    want = numpy_ref.confinement(*vs, obs, 2.0, 0.05)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g), w, rtol=1e-6, atol=1e-6)

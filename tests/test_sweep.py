@@ -1,11 +1,13 @@
 """Batched design sweep (BASELINE config 4): vmapped scenes == individual."""
 
 import numpy as np
+import pytest
 
-from fluid_simulation_tpu.config import SimParams
-from fluid_simulation_tpu.models.sweep import batch_masks, design_sweep, drag_proxy
-from fluid_simulation_tpu.models.windtunnel import WindTunnel
-from fluid_simulation_tpu.scene.primitives import (
+from fluid_simulation.config import SimParams
+from fluid_simulation.models.sweep import (
+    auto_route, batch_masks, design_sweep, drag_proxy)
+from fluid_simulation.models.windtunnel import WindTunnel
+from fluid_simulation.scene.primitives import (
     add_box, add_sphere, empty_obstacles)
 
 P = SimParams(width=16, height=8, depth=8, acc=5)
@@ -50,21 +52,26 @@ def test_sweep_routes_agree():
     geoms = _geometries()[:3]
     bm = batch_masks(geoms)
     f_v, s_v = design_sweep(bm, P, steps=3, route="vmap")
-    f_s, s_s = design_sweep(bm, P, steps=3, route="sequential")
     f_m, s_m = design_sweep(bm, P, steps=3, route="map")
-    np.testing.assert_allclose(np.asarray(s_v.density_sum),
-                               np.asarray(s_s.density_sum), rtol=1e-6)
-    for a, b in zip(f_v, f_s):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6)
     # map route == vmap route bitwise: both run the batched=True step
     np.testing.assert_array_equal(np.asarray(s_m.density_sum),
                                   np.asarray(s_v.density_sum))
     assert np.asarray(s_m.density_sum).shape == (3, 3)   # (steps, B)
     for a, b in zip(f_m, f_v):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    big = SimParams(width=128, height=64, depth=64)
-    assert big.n_cells >= 256 * 1024          # flagship auto-routes off vmap
-    assert P.n_cells < 256 * 1024             # test grid auto-routes vmap
+    assert auto_route(P) == "vmap"
+    with pytest.raises(ValueError):
+        design_sweep(bm, P, steps=1, route="sequential")
+
+
+@pytest.mark.parametrize("grid,route", [
+    ((16, 8, 8), "vmap"), ((128, 64, 64), "vmap"),
+    ((256, 128, 128), "map"), ((512, 256, 256), "map")])
+def test_auto_route(grid, route):
+    """'auto' takes vmap up to the flagship and map on the larger grids,
+    where map measured faster; it never unrolls."""
+    W, H, D = grid
+    assert auto_route(SimParams(width=W, height=H, depth=D)) == route
 
 
 def test_drag_proxy_orders_geometries():

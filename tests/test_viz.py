@@ -6,14 +6,14 @@ import os
 import numpy as np
 import pytest
 
-from fluid_simulation_tpu.config import SimParams, ViewerParams
-from fluid_simulation_tpu.viz.colormap import (
+from fluid_simulation.config import SimParams, ViewerParams
+from fluid_simulation.viz.colormap import (
     DENSITY_CMAP_COLORS, apply_colormap, build_lut, overlay_obstacle)
-from fluid_simulation_tpu.viz.marching import (
+from fluid_simulation.viz.marching import (
     generate_obstacle_mesh, marching_tetrahedra)
-from fluid_simulation_tpu.viz.slices import render_slice, render_frame_device
-from fluid_simulation_tpu.viz.streamlines import generate_streamlines
-from fluid_simulation_tpu.viz.viewer2d import compose_frame
+from fluid_simulation.viz.slices import render_slice, render_frame_device
+from fluid_simulation.viz.streamlines import generate_streamlines
+from fluid_simulation.viz.viewer2d import compose_frame
 
 
 def test_lut_matches_matplotlib_reference_cmap():
@@ -103,9 +103,9 @@ def test_streamlines_no_obstacle_empty():
 
 @pytest.fixture(scope="module")
 def small_dump(tmp_path_factory):
-    from fluid_simulation_tpu.io.dump import run_and_dump
-    from fluid_simulation_tpu.models.windtunnel import WindTunnel
-    from fluid_simulation_tpu.scene.primitives import empty_obstacles, add_box
+    from fluid_simulation.io.dump import run_and_dump
+    from fluid_simulation.models.windtunnel import WindTunnel
+    from fluid_simulation.scene.primitives import empty_obstacles, add_box
     d = str(tmp_path_factory.mktemp("dump") / "data")
     p = SimParams(width=16, height=8, depth=8, acc=6)
     obs = add_box(empty_obstacles(16, 8, 8), 6, 9, 3, 5, 3, 5)
@@ -115,7 +115,7 @@ def small_dump(tmp_path_factory):
 
 
 def test_compose_frame(small_dump):
-    from fluid_simulation_tpu.io.dump import read_run
+    from fluid_simulation.io.dump import read_run
     run = read_run(small_dump)
     img = compose_frame(run, frame=5, z=5, field="Density", vectors=True,
                         skip=4)
@@ -128,7 +128,7 @@ def test_compose_frame(small_dump):
 
 
 def test_build_scene_headless(small_dump):
-    from fluid_simulation_tpu.viz.viewer3d import build_scene, check_data_dir
+    from fluid_simulation.viz.viewer3d import build_scene, check_data_dir
     assert check_data_dir(small_dump) is None
     assert check_data_dir("/nonexistent_dir_xyz") is not None
     p = ViewerParams(streamline_density=8, integration_steps=40)
@@ -141,7 +141,7 @@ def test_build_scene_headless(small_dump):
 def test_background_geometry():
     """Grid/axes/domain-bbox line sets (GUI/gl_widget.py:93-182 analog,
     VERDICT r1 C27 gap)."""
-    from fluid_simulation_tpu.viz.viewer3d import background_geometry
+    from fluid_simulation.viz.viewer3d import background_geometry
     bg = background_geometry(20, 10, 10, grid_step=5, axis_len=20.0)
     assert set(bg) == {"grid", "bbox", "axis_x", "axis_y", "axis_z"}
     for segs, rgba, width in bg.values():
@@ -161,7 +161,7 @@ def test_background_geometry():
 
 
 def test_export_pngs(small_dump, tmp_path):
-    from fluid_simulation_tpu.viz.export import export_pngs
+    from fluid_simulation.viz.export import export_pngs
     out = str(tmp_path / "pngs")
     n = export_pngs(small_dump, out)
     assert n == 18                             # 6 frames x 3 fields
@@ -175,9 +175,9 @@ def test_matplotlib_viewer_fallback_headless(small_dump, monkeypatch):
     matplotlib.use("Agg", force=True)
     import matplotlib.pyplot as plt
     monkeypatch.setattr(plt, "show", lambda *a, **k: None)
-    from fluid_simulation_tpu.viz.viewer2d import _launch_matplotlib
-    from fluid_simulation_tpu.io.dump import read_run
+    from fluid_simulation.viz.viewer2d import _launch_matplotlib
+    from fluid_simulation.io.dump import read_run
     assert _launch_matplotlib(read_run(small_dump)) == 0
-    from fluid_simulation_tpu.viz.viewer3d import _launch_matplotlib as l3
+    from fluid_simulation.viz.viewer3d import _launch_matplotlib as l3
     assert l3(small_dump, None, None) == 0
     plt.close("all")

@@ -33,8 +33,8 @@ def _setup_jax():
 
 
 def report_scenario(name, obstacles=None):
-    from fluid_simulation_tpu.config import SimParams
-    from fluid_simulation_tpu.models.windtunnel import WindTunnel
+    from fluid_simulation.config import SimParams
+    from fluid_simulation.models.windtunnel import WindTunnel
 
     path = os.path.join(os.path.dirname(__file__), "..", "tests", "golden",
                         name + ".npz")
@@ -81,8 +81,8 @@ def report_scenario(name, obstacles=None):
 def headline():
     """The reference's own console statistics at its default configuration
     (BASELINE.md: density sum 14125.1, dens max 0.0505...)."""
-    from fluid_simulation_tpu.config import SimParams
-    from fluid_simulation_tpu.models.windtunnel import WindTunnel
+    from fluid_simulation.config import SimParams
+    from fluid_simulation.models.windtunnel import WindTunnel
 
     wt = WindTunnel(SimParams())  # rbgs default
     wt.simulate(steps=100)
@@ -110,7 +110,7 @@ def main():
     args = ap.parse_args()
     _setup_jax()
 
-    from fluid_simulation_tpu.scene.primitives import add_box, empty_obstacles
+    from fluid_simulation.scene.primitives import add_box, empty_obstacles
 
     print("Fidelity report (compat semantics, wavefront-GS solver vs the")
     print("compiled reference binary at OMP_NUM_THREADS=1):")

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Per-op breakdown of a jax.profiler trace captured by tools/exp_trace.py.
+"""Per-op breakdown of a jax.profiler trace of ``steps`` scanned steps.
 
-Reads the newest ``*.trace.json.gz`` under the trace dir (default
-/tmp/fstpu_trace), sums device-op durations over the scanned steps, and
-prints us/step per op (the round-4/5 workflow that found the 116 us inlet
-DUS cost and the round-5 masked-step budget).
+Reads the newest ``*trace.json.gz`` under ``trace_dir`` (written by
+``jax.profiler.trace(trace_dir, create_perfetto_trace=True)``), keeps the
+events of the GPU device planes (processes named ``/device:GPU:<n>``), sums
+their durations per op and prints us/step per op.
 
-Usage: python tools/trace_report.py [trace_dir] [steps]
+Usage: python tools/trace_report.py trace_dir [steps]
 """
 import collections
 import glob
@@ -18,7 +18,7 @@ import sys
 
 def load_device_events(trace_dir):
     paths = sorted(glob.glob(os.path.join(
-        trace_dir, "plugins/profile/*/[!_]*.trace.json.gz")))
+        trace_dir, "plugins/profile/*/*trace.json.gz")))
     if not paths:
         raise SystemExit(f"no trace.json.gz under {trace_dir}")
     path = paths[-1]
@@ -27,13 +27,15 @@ def load_device_events(trace_dir):
     ev = tr["traceEvents"]
     dev_pids = {e["pid"] for e in ev
                 if e.get("ph") == "M" and e.get("name") == "process_name"
-                and "TPU" in str(e.get("args", {}).get("name", ""))}
+                and "/device:GPU" in str(e.get("args", {}).get("name", ""))}
     return path, [e for e in ev
                   if e.get("ph") == "X" and e.get("pid") in dev_pids]
 
 
 def main():
-    trace_dir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/fstpu_trace"
+    if len(sys.argv) < 2:
+        raise SystemExit(__doc__)
+    trace_dir = sys.argv[1]
     steps = int(sys.argv[2]) if len(sys.argv) > 2 else 50
     path, ev = load_device_events(trace_dir)
     print(f"# {path}: {len(ev)} device events", flush=True)
